@@ -4,7 +4,7 @@
 // mmaps .dat capture files (interleaved little-endian f32 I/Q, the wire
 // format of /root/reference/src/utils.rs:228-254 and UHD's
 // rx_samples_to_file) and deinterleaves chunks into planar float32 re/im
-// buffers — the exact layout the TPU transfer shim uploads, so the Python
+// buffers — the planar layout core/transfer.py uploads, so the Python
 // layer never touches the samples.  C ABI for ctypes.
 
 #include <cstdint>

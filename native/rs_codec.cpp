@@ -9,6 +9,10 @@
 #include <cstdint>
 #include <cstring>
 
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
 #if defined(__GFNI__) && defined(__AVX512F__) && defined(__AVX512BW__)
 #include <immintrin.h>
 #define RS_GFNI 1
@@ -507,7 +511,7 @@ void correct_batch64(Tile& tile, const uint8_t synd_soa[kEcc][64], int n,
     // deg(omega) < L for every correctable lane, so only coefficients
     // below lmax are ever nonzero where they matter — build (and later
     // evaluate) just those: at the worst case L=16 this halves the Forney
-    // numerator work, and at L=8 it cuts it 4x (round-4 worst-case win).
+    // numerator work, and at L=8 it cuts it 4x.
     const int wmax = lmax > 0 ? lmax : 1;
     __m512i W[kEcc];
     for (int k = 0; k < wmax; ++k) {
@@ -609,6 +613,17 @@ void rs_encode_blocks(const uint8_t* in, int n_blocks, uint8_t* out) {
 #pragma omp parallel for schedule(static) if (n_blocks >= 16)
     for (int i = 0; i < n_blocks; ++i)
         encode_one(in + i * kK, out + i * kN);
+#endif
+}
+
+// Threads the batch loops may use: OpenMP's maximum where the library was
+// built with it (native/Makefile drops -fopenmp where libgomp is missing),
+// else 1.  Callers report it beside host-tail timings.
+int rs_threads(void) {
+#ifdef _OPENMP
+    return omp_get_max_threads();
+#else
+    return 1;
 #endif
 }
 

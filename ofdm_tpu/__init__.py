@@ -1,8 +1,9 @@
-"""ofdm_tpu — a TPU-native OFDM transceiver framework (JAX/XLA/Pallas).
+"""ofdm_tpu — a batched OFDM transceiver framework in JAX for NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of the reference Rust ``ofdm``
-crate (jkelleyrtp/ofdm), designed TPU-first: batched tensor pipelines, MXU
-matmul FFTs, fused demodulation, and mesh-sharded scaling — not a port.
+crate (jkelleyrtp/ofdm), designed for accelerators rather than ported:
+batched tensor pipelines, matmul DFTs, fused demodulation, and mesh-sharded
+scaling.
 
 Public API mirrors the reference's three entry points
 (``encode!``/``channel!``/``decode!``) plus the batched production paths.

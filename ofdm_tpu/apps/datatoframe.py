@@ -42,4 +42,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from ofdm_tpu.apps import run
+    run(main)

@@ -1,4 +1,4 @@
-"""probe: accelerator discovery/diagnostics (the TPU analog of
+"""probe: accelerator discovery/diagnostics (the accelerator analog of
 examples/probe.rs's USRP probe: enumerate devices, capabilities, memory).
 """
 
@@ -39,4 +39,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from ofdm_tpu.apps import run
+    run(main)

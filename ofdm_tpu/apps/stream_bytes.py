@@ -37,7 +37,7 @@ def main(argv=None):
     log.info("gif %sx%s, %d frames", dims[0], dims[1], len(frames))
 
     mod = ot.Modulation(args.modulation)
-    # One batched encode for all frames — the TPU way.
+    # One batched encode for all frames.
     from ofdm_tpu.core.transfer import to_host
     coded = np.stack([rs.encode_stream(f) for f in frames])
     tx = to_host(ot.encode(coded, guard_bands=True, modulation=mod))
@@ -49,4 +49,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from ofdm_tpu.apps import run
+    run(main)

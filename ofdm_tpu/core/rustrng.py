@@ -10,7 +10,7 @@ seed with a PCG32 step (rand_core 0.6 default impl), and ``gen_range`` on an
 We re-derive those three algorithms from their public specifications so the
 frame constants (preamble seed 100, training seed 50) match the reference's
 wire format exactly.  This is pure-Python and only runs once at import time to
-build small constant tables; nothing here is on the TPU hot path.
+build small constant tables; nothing here is on the device hot path.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Hamming(7,4) forward error correction — the north-star TPU codec.
+"""Hamming(7,4) forward error correction — the north-star on-device codec.
 
 The reference README claims "Error Correction with Hamming Codes" but actually
 ships Reed-Solomon (README.md:11 vs src/utils.rs:97-137); BASELINE.json's
@@ -14,11 +14,9 @@ Layout (this framework's spec):
 
 Corrects any single bit error per 7-bit codeword.
 
-TPU-first formulation: both directions run ENTIRELY as elementwise uint8 bit
-math in a codeword-SoA layout — no 8x bool bit expansion and no [..., 7]
-minor-axis reshapes (both measured expensive on TPU: the original
-bit-tensor + tiny-matmul decode cost ~0.7 ms at the 256-frame streaming
-shape; this formulation is pure VPU work on [..., n_code/8]-shaped planes).
+Formulation: both directions run ENTIRELY as elementwise uint8 bit math in
+a codeword-SoA layout — no 8x bool bit expansion and no [..., 7] minor-axis
+reshapes; the work is elementwise on [..., n_code/8]-shaped planes.
 7-bit codewords pack 8-to-7-bytes, so the byte stream reshapes losslessly to
 [..., G, 7] groups and every codeword extraction / syndrome / correction /
 nibble repack is a static-shape elementwise expression that fuses into the

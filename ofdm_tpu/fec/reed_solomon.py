@@ -34,8 +34,16 @@ if os.path.exists(_LIB_PATH):
         _LIB.rs_decode_blocks.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint8)]
-    except OSError:
+        _LIB.rs_threads.restype = ctypes.c_int
+    except (OSError, AttributeError):
         _LIB = None
+
+
+def native_threads() -> int | None:
+    """Threads the native codec's batch loops may use (1 where it was built
+    without OpenMP); None when the numpy fallback is in use."""
+    return None if _LIB is None else int(_LIB.rs_threads())
+
 
 PRIM_POLY = 0x11D
 N = 255

@@ -1,8 +1,8 @@
 """Linear convolution for the channel simulator.
 
 The reference convolves the whole transmission with a 64-tap impulse response
-via full-length FFTs (src/signals/mod.rs:219-237, src/channel.rs:45).  On TPU a
-64-tap kernel is far cheaper as a direct convolution (fused MACs, no giant
+via full-length FFTs (src/signals/mod.rs:219-237, src/channel.rs:45).  On an
+accelerator a 64-tap kernel is cheaper as a direct convolution (fused MACs, no giant
 FFT, exact linear — not circular — semantics), so that is the default; an
 FFT path is kept for parity testing.
 """

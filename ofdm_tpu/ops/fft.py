@@ -5,11 +5,10 @@ Two interchangeable paths, both matching the reference's conventions
 i.e. exactly numpy semantics):
 
 1. ``jnp.fft.fft/ifft`` — XLA's generic FFT.
-2. ``dft_matmul`` — the TPU-first path for the tiny per-symbol 64-point
+2. ``dft_matmul`` — the matmul path for the tiny per-symbol 64-point
    transforms: a DFT is just a matmul, and a batched [N, 64] x [64, 64]
-   complex matmul maps straight onto the MXU as one real [N, 128] x [128, 128]
-   product.  For 64-point batched transforms this beats the generic FFT by a
-   wide margin on TPU and fuses with neighboring elementwise work.
+   complex matmul is one real [N, 128] x [128, 128] product that fuses with
+   neighboring elementwise work.
 
 The complex product (xr + j xi)(Wr + j Wi) is packed as
 
@@ -47,14 +46,14 @@ def _packed_dft_matrix(n: int, inverse: bool, dtype_name: str) -> np.ndarray:
 
 def dft_matmul(x: jnp.ndarray, inverse: bool = False,
                precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """DFT over the last axis via a packed real matmul (MXU path).
+    """DFT over the last axis via a packed real matmul.
 
     Matches ``jnp.fft.fft`` (forward, unnormalized) / ``jnp.fft.ifft``
     (inverse, 1/N) on the last axis for any leading batch shape.
 
-    ``precision`` trades accuracy for MXU passes: HIGHEST keeps ~f32
-    accuracy (default — channel estimation divides by these outputs);
-    DEFAULT runs single-pass bf16 inputs, fine for sync-adjacent work.
+    ``precision`` trades accuracy for speed: HIGHEST keeps ~f32 accuracy
+    (default — channel estimation divides by these outputs); lower settings
+    let the backend use reduced-precision inputs.
     """
     n = x.shape[-1]
     real_dtype = jnp.finfo(x.dtype).dtype.name if jnp.iscomplexobj(x) else x.dtype.name
@@ -81,8 +80,7 @@ def dft_matmul_select(x: jnp.ndarray, bins: tuple,
     Output bin order follows ``bins``.  For the OFDM receive path this skips
     the guard bins entirely: a [.., 128] x [128, 2k] matmul instead of
     [.., 128] x [128, 128] plus a gather — the downstream equalize/demod then
-    runs on the packed bins with no 64-bin intermediate (production win
-    measured in tools/exp_xla_opt.py).
+    runs on the packed bins with no 64-bin intermediate.
     """
     n = x.shape[-1]
     k = len(bins)
@@ -93,60 +91,6 @@ def dft_matmul_select(x: jnp.ndarray, bins: tuple,
     out = jnp.matmul(packed, w, precision=precision,
                      preferred_element_type=packed.dtype)
     return jax.lax.complex(out[..., :k], out[..., k:])
-
-
-@lru_cache(maxsize=None)
-def _packed_dft_select_matrix_padded(n: int, bins: tuple, n_out: int,
-                                     dtype_name: str) -> np.ndarray:
-    w = _packed_dft_select_matrix(n, bins, dtype_name)
-    k = len(bins)
-    out = np.zeros((w.shape[0], 2 * n_out), dtype=w.dtype)
-    out[:, :k] = w[:, :k]
-    out[:, n_out:n_out + k] = w[:, k:]
-    return out
-
-
-def dft_matmul_select_planar(x: jnp.ndarray, bins: tuple,
-                             precision=jax.lax.Precision.HIGHEST,
-                             n_out: int | None = None):
-    """``dft_matmul_select`` with planar (yr, yi) f32 outputs.
-
-    Identical math to ``dft_matmul_select`` — the packed [.., 2n] x [2n, 2k]
-    product is split column-wise into two [.., 2n] x [2n, k] matmuls (same
-    K-reduction per output element; the backend may tile the reduction
-    differently, so results agree to ~f32 rounding rather than bitwise) —
-    but the real/imag planes land in separate arrays that feed the fused
-    Pallas demod kernel (kernels/demod_pallas.py) with no complex re-pack or
-    lane slicing.  Total padded MXU columns are unchanged
-    (2 x pad128(k) vs pad128(2k) for the k=52 guard-band case: 256 = 256).
-
-    ``n_out``: zero-pad each plane to ``n_out`` columns *inside the matmul*
-    (zero columns in the weight matrix — free on the MXU, whose tiles are
-    128-padded anyway).  Pallas consumers use n_out=128 so every physical
-    lane of the planes holds a defined value: Mosaic tile padding is
-    undefined, and letting garbage lanes enter a downstream K-padded matmul
-    reduction corrupts output bytes (the root cause of the deleted
-    experimental rx_fused kernel's long-unexplained ~0.24% hardware mismatch
-    — see tools/exp_demod_tail.py and docs/BENCHMARKS.md).
-    """
-    n = x.shape[-1]
-    k = len(bins)
-    real_dtype = jnp.finfo(x.dtype).dtype.name if jnp.iscomplexobj(x) \
-        else x.dtype.name
-    if n_out is None:
-        w = jnp.asarray(_packed_dft_select_matrix(n, tuple(bins), real_dtype))
-        ko = k
-    else:
-        assert n_out >= k
-        w = jnp.asarray(_packed_dft_select_matrix_padded(
-            n, tuple(bins), n_out, real_dtype))
-        ko = n_out
-    packed = jnp.concatenate([jnp.real(x), jnp.imag(x)], axis=-1)
-    yr = jnp.matmul(packed, w[:, :ko], precision=precision,
-                    preferred_element_type=packed.dtype)
-    yi = jnp.matmul(packed, w[:, ko:], precision=precision,
-                    preferred_element_type=packed.dtype)
-    return yr, yi
 
 
 @lru_cache(maxsize=None)
@@ -169,9 +113,8 @@ def dft_matmul_select_derot(x: jnp.ndarray, bins: tuple, omega: jnp.ndarray,
     rank-1 row scaling of the DFT matrix, so it becomes a per-row batched
     matmul [..., C, 2n] x [..., 2n, 2k]; the per-row matrix is only
     2n x 2k f32 (53 KB at the 52-bin guard-band shape) vs the full
-    sample stream, removing the largest HBM tranche of the aligned decode
-    (the full-stream elementwise derotate pass — see docs/BENCHMARKS.md
-    "Roofline").  The remaining per-CHUNK phase exp(-i*omega*c*sym_len) is
+    sample stream, removing the full-stream elementwise derotate pass of the
+    aligned decode.  The remaining per-CHUNK phase exp(-i*omega*c*sym_len) is
     NOT applied here — the caller multiplies the (small) bin tensor by it,
     where it fuses into the equalizer.
 
@@ -221,10 +164,9 @@ def dft_matmul_select_derot_planar(xr: jnp.ndarray, xi: jnp.ndarray,
                                    ) -> jnp.ndarray:
     """``dft_matmul_select_derot`` fed by separate real/imag planes.
 
-    xr, xi: f32[..., C, n] — e.g. the planes the fused Pallas sync+align
-    kernel already holds (kernels/align_pallas.py ``planar=True``), so no
-    complex64 aligned stream is ever materialized between alignment and the
-    DFT.  The packed [.., 2n] x [2n, 2k] product becomes
+    xr, xi: f32[..., C, n] — e.g. the planes of a planar aligned stream, so
+    no complex64 aligned stream is ever materialized between alignment and
+    the DFT.  The packed [.., 2n] x [2n, 2k] product becomes
     ``xr @ top + xi @ bot`` — two K=n matmuls summed instead of one K=2n
     matmul: identical math and total MACs, but the K-reduction splits at n,
     so results agree with the packed form to f32 rounding rather than
@@ -291,7 +233,7 @@ def idft_matmul_rows_cp(x: jnp.ndarray, bins: tuple, n: int, cp_len: int,
     is the SAME dot product as the concat formulation — bitwise identical —
     but the [..., cp] gather + concat pass over the full sample stream
     disappears (the matmul writes prefixed blocks directly).  ~cp/n more
-    MACs, which is noise next to the saved HBM pass on TPU.
+    MACs, which is noise next to the saved memory pass.
     """
     k = len(bins)
     assert x.shape[-1] == k

@@ -5,10 +5,10 @@ Two implementations with identical argmax/offset semantics:
 - ``xcorr_fft``: the MATLAB-convention reference oracle (pad both inputs to
   2*len(a)-1, FFT(a)*conj(FFT(b)), IFFT, fftshift, argmax) replicating
   src/signals/mod.rs:186-217 exactly.  Used in tests and for API parity.
-- ``sliding_correlation`` / ``locking_sync_offset``: the TPU-first path.  The
+- ``sliding_correlation`` / ``locking_sync_offset``: the batched path.  The
   locking template is only 80 taps, so the correlation is a short-kernel
-  convolution over the sample stream — O(80*N) fused VPU/MXU work instead of
-  three full-length FFTs.  The lag->offset arithmetic reproduces the
+  convolution over the sample stream — O(80*N) fused multiply-accumulate
+  work (or one banded-Toeplitz matmul) instead of three full-length FFTs.  The lag->offset arithmetic reproduces the
   reference's ``idxmax - ((len-1)/2 + 1)`` formula (src/receiver.rs:20-25):
   for a peak at lag k the returned offset is k - 1.
 """
@@ -80,7 +80,7 @@ def sliding_correlation(samples: jnp.ndarray, template: jnp.ndarray,
 
     Output index i corresponds to lag i - (K-1).  Batched over leading axes.
     Implemented as a real depthwise convolution pair (template conjugated),
-    which XLA lowers to fused multiply-accumulate on TPU.
+    which XLA lowers to fused multiply-accumulate.
     """
     squeeze = samples.ndim == 1
     if squeeze:
@@ -96,8 +96,7 @@ def sliding_correlation(samples: jnp.ndarray, template: jnp.ndarray,
     # (sr + j si) * conj(tr + j ti): re = sr*tr + si*ti ; im = si*tr - sr*ti.
     # XLA's conv is correlation (kernel not reversed), exactly the sliding
     # template match: out[i] = sum_j x[i-(k-1)+j] h[j] = c[lag = i-(k-1)].
-    # compute_dtype=bfloat16 runs the MACs on the MXU at ~2x f32 throughput;
-    # the sync peak is very tolerant of bf16's ~8-bit mantissa (the argmax
+    # compute_dtype=bfloat16 runs the MACs with bf16 inputs; the sync peak is very tolerant of bf16's ~8-bit mantissa (the argmax
     # compares well-separated correlation power levels).  Accumulation stays
     # f32 via preferred_element_type.
     cd = compute_dtype or rd
@@ -148,7 +147,8 @@ def _toeplitz_template_real(template_key, k: int, dtype_name: str):
     (fft_shift only reorders — src/transmitter.rs:60-72), so the generic
     complex form's -ti/ti blocks are all zeros and HALF of every sync
     correlation matmul multiplies zeros; this form does half the MACs for
-    identical results (roofline round 3, tools/exp_roofline.py)."""
+    identical results.  Also the one source of the sync kernel's template
+    (kernels/sync_align.py)."""
     t = np.asarray(_TEMPLATE_STORE[template_key])
     tr = np.zeros((256, 128))
     for b in range(128):
@@ -166,11 +166,13 @@ _TEMPLATE_STORE: dict = {}
 def sliding_correlation_matmul(samples: jnp.ndarray, template,
                                compute_dtype=None) -> jnp.ndarray:
     """c[lag] = sum_j samples[lag+j] * conj(template[j]) for lag in [0, T-1],
-    as one MXU matmul: stride-128 frames of 256 samples against a banded
-    Toeplitz of the template ([.., 512] x [512, 256], lane-aligned).
+    as one matmul: stride-128 frames of 256 samples against a banded
+    Toeplitz of the template ([.., 512] x [512, 256]).
 
     Requires len(template) <= 128.  samples: complex[B, T] (or [T]).
-    This is the fast sync path — ~10x the conv lowering's throughput.
+    This is the XLA sync path; the matmul states no precision, so an f32
+    stream takes the backend's default (PERF.md says what that is on the
+    GPU and why peak picking tolerates it).
     """
     squeeze = samples.ndim == 1
     if squeeze:
@@ -262,7 +264,7 @@ def locking_sync_offset(samples: jnp.ndarray, template: jnp.ndarray,
         lag = jnp.argmax(power, axis=-1) - (k - 1)
         return lag - 1
     elif template.shape[-1] <= 128:
-        # default: banded-Toeplitz MXU matmul over lags >= 0 (negative lags
+        # default: banded-Toeplitz matmul over lags >= 0 (negative lags
         # map to offsets < -1, which every consumer rejects anyway)
         cd = compute_dtype if not isinstance(compute_dtype, str) else None
         c = sliding_correlation_matmul(samples, np.asarray(template),

@@ -9,7 +9,7 @@ by test.
 
 The reference used a kd-tree for nearest-neighbor search; with only 256
 candidate colors a brute-force distance computation is one [N, 256] matmul-
-shaped reduction — faster, simpler, and batchable on TPU.
+shaped reduction — faster, simpler, and batchable on an accelerator.
 """
 
 from __future__ import annotations

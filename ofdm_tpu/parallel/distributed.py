@@ -1,15 +1,15 @@
 """Multi-host runtime initialization.
 
-One JAX distributed runtime spans all hosts of a TPU slice: intra-slice
-collectives ride ICI, cross-host traffic rides DCN — XLA routes them from
-the mesh's device layout (SURVEY.md section 2.4).  This wrapper makes the
-single-process case a no-op so apps and benches run unchanged from one chip
-to a multi-host pod.
+One JAX distributed runtime spans all processes of a job: the GPUs of one
+host reach each other all to all over NVLink, and hosts talk over the
+network; XLA hands the collectives to NCCL (SURVEY.md section 2.4).  This
+wrapper makes the single-process case a no-op so apps and benches run
+unchanged from one GPU to many hosts.
 
 Usage (one call at process start, before any backend use):
 
     from ofdm_tpu.parallel.distributed import initialize
-    initialize()                       # env-driven (TPU pods auto-detect)
+    initialize()                       # env-driven (cluster schedulers)
     initialize(coordinator="host0:1234", num_processes=4, process_id=i)
 
 Exercised for real (two OS processes on localhost, gloo CPU collectives,
@@ -32,7 +32,8 @@ def initialize(coordinator: str | None = None,
     import jax
 
     if num_processes is None and coordinator is None:
-        # TPU pods populate the cluster env; elsewhere single-process.
+        # a cluster scheduler (e.g. SLURM) populates the environment;
+        # elsewhere single-process.
         try:
             jax.distributed.initialize()
             started = jax.process_count() > 1

@@ -4,11 +4,11 @@ The receiver's sliding correlation needs each time-shard to see the first
 K-1 samples of its right neighbor (K = 80-sample locking template), and the
 symbol chunking needs whole 80-sample symbols after sync alignment.  Both are
 served by a right-to-left halo exchange: shard i receives the leading ``halo``
-samples of shard i+1, via ``jax.lax.ppermute`` over the mesh's ICI ring
-(SURVEY.md section 5.7; the SNIPPETS halo-exchange patterns).
+samples of shard i+1, via ``jax.lax.ppermute`` around the mesh's time-axis
+ring (SURVEY.md section 5.7).
 
 Everything here runs inside ``shard_map`` — per-shard code with explicit
-collectives, the TPU-native replacement for the reference's single sequential
+collectives, the batched replacement for the reference's single sequential
 ``Vec`` scan (src/receiver.rs:36-74).
 """
 

@@ -1,17 +1,18 @@
 """Device mesh construction for the distributed transceiver.
 
-The reference is a single-radio CPU pipeline (SURVEY.md section 2.4); the TPU
+The reference is a single-radio CPU pipeline (SURVEY.md section 2.4); this
 framework scales two ways:
 
 - ``data`` axis: independent OFDM channels / frames / capture buffers —
   embarrassingly parallel, the primary scaling axis (north star: 64+ channels).
 - ``time`` axis: sequence parallelism over long sample streams.  Sliding
   correlation windows need a 79-sample halo from the right neighbor
-  (locking template is 80 long), exchanged over ICI with ``ppermute``.
+  (locking template is 80 long), exchanged with ``ppermute``.
 
-Collectives ride ICI within a slice; DCN across hosts — XLA picks based on
-the mesh's device order, which `make_mesh` takes straight from
-``mesh_utils.create_device_mesh`` for contiguity.
+The GPUs of one host are joined all to all by NVLink, so every device pair
+is equally close and the mesh's shape follows the algorithm alone; XLA
+hands the collectives to NCCL.  `make_mesh` takes the device order from
+``mesh_utils.create_device_mesh``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Three building blocks:
 
 - ``sharded_sync_offset`` — sequence-parallel frame sync: the sample stream's
   time axis is sharded, each shard runs the sliding correlation locally after
-  a 79-sample ring halo exchange (ppermute over ICI), and a distributed
+  a 79-sample ring halo exchange (ppermute), and a distributed
   argmax with first-occurrence tie-breaking reproduces the reference offset
   (src/receiver.rs:20-25) for all non-negative lags.
 - ``decode_frame_sharded`` — channel/data-parallel batched decode: rows of
@@ -72,45 +72,43 @@ def sharded_sync_offset(samples: jnp.ndarray, mesh,
     return fn(samples)
 
 
+def _rows_sharded(decode, x, mesh):
+    """Run a row-wise ``decode`` per data shard under shard_map.
+
+    Rows are independent, so each device decodes its own rows with no
+    cross-device traffic.  The explicit shard_map (rather than GSPMD
+    partitioning of a sharded argument) also keeps a Pallas kernel on the
+    decode path local to each device, since a pallas_call has no GSPMD
+    partitioning rule."""
+    spec = P(DATA_AXIS, *([None] * (x.ndim - 1)))
+    sharded = jax.device_put(x, NamedSharding(mesh, spec))
+    fn = shard_map(decode, mesh=mesh, in_specs=(spec,),
+                   out_specs=P(DATA_AXIS, None), check_vma=False)
+    return fn(sharded)
+
+
 def decode_frame_sharded(samples: jnp.ndarray, mesh, *, n_blocks: int,
                          guard_bands: bool = False,
                          modulation: Modulation = Modulation.BPSK,
                          cfg: FrameConfig = DEFAULT_CONFIG) -> jnp.ndarray:
     """Data-parallel batched decode: [B, T] rows sharded over the data axis."""
-    sharded = jax.device_put(samples, NamedSharding(mesh, P(DATA_AXIS, None)))
-    return rx_mod.decode_frame(sharded, n_blocks=n_blocks,
-                               guard_bands=guard_bands, modulation=modulation,
-                               cfg=cfg)
+    return _rows_sharded(
+        partial(rx_mod.decode_frame, n_blocks=n_blocks,
+                guard_bands=guard_bands, modulation=modulation, cfg=cfg),
+        samples, mesh)
 
 
 def decode_frame_planar_sharded(planes: jnp.ndarray, mesh, *, n_blocks: int,
                                 guard_bands: bool = False,
                                 modulation: Modulation = Modulation.BPSK,
-                                cfg: FrameConfig = DEFAULT_CONFIG,
-                                align_impl: str = "auto",
-                                interpret: bool = False) -> jnp.ndarray:
+                                cfg: FrameConfig = DEFAULT_CONFIG
+                                ) -> jnp.ndarray:
     """Data-parallel PLANAR batched decode: f32[B, 2, T] (or pre-tiled
-    f32[B, 2, tiles, 128]) rows sharded over the data axis.
-
-    Rows are independent, so the fused Pallas sync+align kernel (or the
-    slot-major chunked kernel, ``align_impl="chunked"``) runs per shard
-    under shard_map — a Pallas call has no GSPMD partitioning rule, so the
-    explicit shard_map is what keeps the kernel local to each device's
-    rows (no gather of the batch).  ``interpret=True`` runs the kernels in
-    interpret mode on CPU meshes (the multichip dryrun)."""
-    spec = P(DATA_AXIS, *([None] * (planes.ndim - 1)))
-    sharded = jax.device_put(planes, NamedSharding(mesh, spec))
-
-    @partial(shard_map, mesh=mesh, in_specs=(spec,),
-             out_specs=P(DATA_AXIS, None),
-             check_vma=False)     # pallas_call outputs carry no vma info
-    def fn(p):
-        return rx_mod.decode_frame_planar(
-            p, n_blocks=n_blocks, guard_bands=guard_bands,
-            modulation=modulation, cfg=cfg, align_impl=align_impl,
-            interpret=interpret)
-
-    return fn(sharded)
+    f32[B, 2, tiles, 128]) rows sharded over the data axis."""
+    return _rows_sharded(
+        partial(rx_mod.decode_frame_planar, n_blocks=n_blocks,
+                guard_bands=guard_bands, modulation=modulation, cfg=cfg),
+        planes, mesh)
 
 
 @lru_cache(maxsize=None)
@@ -162,9 +160,10 @@ def decode_regular_sharded(samples, mesh, *, n_frames: int, spacing: int,
                                        cfg=cfg), 0).astype(jnp.int32)
     rows = _extract_rows(mesh, need, spacing, flen, n_rows, cfg)(
         samples, first)
-    out = rx_mod.decode_frame(rows, n_blocks=nb, guard_bands=guard_bands,
-                              modulation=modulation, cfg=cfg,
-                              search_window=cfg.sym_len)
+    out = _rows_sharded(
+        partial(rx_mod.decode_frame, n_blocks=nb, guard_bands=guard_bands,
+                modulation=modulation, cfg=cfg, search_window=cfg.sym_len),
+        rows, mesh)
     from ..packets.header import HEADER_LEN
     if fec == "hamming":
         # on-device FEC while still sharded over the data axis: the bit-matmul

@@ -3,10 +3,10 @@
 ``sharded_sync_offset`` parallelizes only frame sync; the decode stage of the
 round-1 pipeline then gathered whole frame rows across the time axis.  This
 module carries sequence parallelism through the ENTIRE receive chain — the
-TPU-native replacement for the reference's sequential whole-``Vec`` scan
+batched replacement for the reference's sequential whole-``Vec`` scan
 (src/receiver.rs:36-74):
 
-1. ONE ring halo exchange of ``sym_len - 1`` samples (ppermute over ICI)
+1. ONE ring halo exchange of ``sym_len - 1`` samples (ppermute)
    serves both the sliding sync correlation (80-tap locking template,
    src/receiver.rs:20-25) and the symbol-boundary spill: after alignment by
    the synced offset, every shard holds complete 80-sample symbols whose
@@ -238,7 +238,7 @@ def timesharded_decode_fn(mesh, *, n_blocks: int, guard_bands: bool,
         by = demodulate_symbols_packed(syms, modulation)            # [B, M, bpb]
 
         # --- scatter decoded bytes into block order (one-hot + psum) --------
-        # uint8 values are exact in f32/f64; the matmul rides the MXU and the
+        # uint8 values are exact in f32/f64; the scatter is one matmul and the
         # psum moves only n_blocks*bpb bytes/row — never the sample axis.
         oh_data = (cidx[..., None] == (jnp.arange(n_blocks, dtype=cidx.dtype)
                                        + n_sync)).astype(rd)

@@ -109,7 +109,7 @@ def modulate_bytes_packed(data: jnp.ndarray, scheme: Modulation,
 
     Identical values to ``modulate_bits(bytes_to_bits(data), scheme)`` (same
     level tables, same zero-padded partial tail symbol; locked by tests) but
-    TPU-first: per-symbol bps-bit codes are extracted from byte groups with
+    batched: per-symbol bps-bit codes are extracted from byte groups with
     elementwise shift/or math — no n*8 bool bit tensor, no bps-minor reshape
     (the tx dual of demodulate_symbols_packed).
     """
@@ -183,7 +183,7 @@ def demodulate_symbols_packed(syms: jnp.ndarray,
     """complex[..., n_syms] -> uint8[..., n_syms*bps//8] packed bytes.
 
     Byte-identical to ``bits_to_bytes(demodulate_symbols(syms, scheme))``
-    (locked by tests) but TPU-first: per-symbol uint8 codes + elementwise
+    (locked by tests) but batched: per-symbol uint8 codes + elementwise
     shift/or packing on [..., G, g] groups — no n_syms*bps bool bit tensor
     and no 8-minor repack reshape (the same SoA treatment as fec/hamming.py).
     """

@@ -2,7 +2,7 @@
 
 Rebuilds the reference encoder (src/transmitter.rs:11-58) as one batched,
 jittable computation: the per-block while-loop becomes a
-[batch, n_blocks, 64] tensor fed through a single MXU-batched IFFT, a cyclic
+[batch, n_blocks, 64] tensor fed through a single batched matmul IFFT, a cyclic
 prefix gather, and a peak normalization.  Wire format is identical:
 
     [locking(80) | preamble x4 (80 each) | training+CP x5 (80 each) |

@@ -1,8 +1,8 @@
 """Test harness configuration.
 
-Tests run on CPU with 8 virtual devices so multi-chip sharding logic is
-exercised without TPU hardware (the driver separately dry-run-compiles the
-multi-chip path).  Must run before any JAX backend is initialized.
+Tests run on CPU with 8 virtual devices so multi-device sharding logic is
+exercised without accelerator hardware (``chip_smoke.py --four`` runs the
+mesh paths on four GPUs).  Must run before any JAX backend is initialized.
 """
 
 import os

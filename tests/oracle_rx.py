@@ -4,8 +4,13 @@ A deliberately naive, loop-based float64 numpy implementation of the
 reference receiver's math (src/receiver.rs:8-96), written directly from the
 cited formulas.  The production decoder is a batched tensor program; decoding
 the same stream through both and comparing post-FEC bytes bit-for-bit guards
-the TPU implementation against structural mistakes a shared-code test could
-never catch.
+the batched implementation against structural mistakes a shared-code test
+could never catch.
+
+QAM-16/64/256 decisions follow ofdm_tpu/phy/modulation.py's Gray mapping
+(the reference's QAM arms are stubs): each axis picks the nearest odd
+integer level, its rank is Gray-coded, and the I bits precede the Q bits,
+LSB-first.
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ import numpy as np
 
 from ofdm_tpu import constants
 from ofdm_tpu.config import DEFAULT_CONFIG
+
+
+_QAM_HALF_BITS = {"qam16": 2, "qam64": 3, "qam256": 4}
 
 
 def oracle_decode(samples: np.ndarray, guard_bands: bool, modulation: str,
@@ -81,6 +89,14 @@ def oracle_decode(samples: np.ndarray, guard_bands: bool, modulation: str,
             l = re >= 0.0
             r = (im >= 0.0) if l else (im > 0.0)
             bits.extend([l, r])
+        elif modulation in _QAM_HALF_BITS:
+            half = _QAM_HALF_BITS[modulation]
+            n_levels = 1 << half
+            for v in (re, im):
+                rank = min(max(round((v + n_levels - 1) / 2.0), 0),
+                           n_levels - 1)
+                code = rank ^ (rank >> 1)
+                bits.extend(bool((code >> b) & 1) for b in range(half))
         else:
             raise ValueError(modulation)
     n_bytes = len(bits) // 8

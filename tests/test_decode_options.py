@@ -1,4 +1,5 @@
-"""Tests for decode_frame's production options (sync dtype, search window)."""
+"""Tests for decode_frame's production options (sync dtype, search window,
+lowering choices)."""
 
 import jax
 import jax.numpy as jnp
@@ -116,8 +117,8 @@ def test_derot_matrix_diag_parity():
                                     (ot.Modulation.QAM256, True),
                                     (ot.Modulation.BPSK, False)])
 def test_decode_planar_matrix_parity(mod, gb):
-    """decode_planar_matrix (the planar f32 handoff from the fused Pallas
-    sync+align kernel — the TPU production route) must be byte-identical to
+    """decode_planar_matrix (the planar f32 handoff from the fused GPU
+    sync+align kernel) must be byte-identical to
     decode_aligned's matrix path and decode bytes exactly, across
     modulations, guard settings, and nonzero CFO draws."""
     from ofdm_tpu.config import DEFAULT_CONFIG as cfg
@@ -141,11 +142,11 @@ def test_decode_planar_matrix_parity(mod, gb):
 
 
 def test_fused_planar_chain_parity():
-    """End-to-end: sync_align(planar=True) (interpret) + decode_planar_matrix
-    == decode_frame's XLA route, byte for byte, with timing error so the
-    in-kernel sync offset actually does work."""
+    """End-to-end: the fused GPU sync+align kernel (interpret mode) +
+    decode_planar_matrix == decode_frame's XLA route, byte for byte, with
+    timing error so the in-kernel sync offset actually does work."""
     from ofdm_tpu.config import DEFAULT_CONFIG as cfg
-    from ofdm_tpu.kernels.align_pallas import sync_align
+    from ofdm_tpu.kernels.sync_align import sync_align
     from ofdm_tpu import constants
     from ofdm_tpu.phy.rx import decode_planar_matrix
     rng = np.random.default_rng(23)
@@ -157,13 +158,13 @@ def test_fused_planar_chain_parity():
     n_chunks = cfg.n_sync_chunks + nb
     need = n_chunks * cfg.sym_len
     rx = jnp.pad(rx, ((0, 0), (0, max(0, need - rx.shape[-1]))))
-    tpl = np.asarray(constants.locking_for(cfg)).astype(np.complex64)
-    planes = sync_align(rx, tpl, need, interpret=True, planar=True)
-    out, _ = decode_planar_matrix(planes, n_chunks=n_chunks, guard_bands=True,
+    planes = jnp.stack([jnp.real(rx), jnp.imag(rx)], axis=1)
+    win = sync_align(planes, constants.locking_for(cfg), need, interpret=True)
+    out, _ = decode_planar_matrix(win, n_chunks=n_chunks, guard_bands=True,
                                   modulation=ot.Modulation.QAM16,
                                   cfo_estimator="coherent")
     ref = ot.decode_frame(rx, n_blocks=nb, guard_bands=True,
-                          modulation=ot.Modulation.QAM16)
+                          modulation=ot.Modulation.QAM16, align_impl="xla")
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
     np.testing.assert_array_equal(np.asarray(out)[:, 16:16 + 120], data)
 
@@ -173,3 +174,19 @@ def test_1d_input(setup):
     out = ot.decode_frame(rx[0], n_blocks=nb, guard_bands=True,
                           modulation=ot.Modulation.QPSK)
     np.testing.assert_array_equal(np.asarray(out)[16:16 + 120], data[0])
+
+
+@pytest.mark.parametrize("kw", [
+    {"align_impl": "fused"}, {"align_impl": "fused_planar"},
+    {"align_impl": "pallas"}, {"align_impl": "chunked"},
+    {"demod_impl": "pallas"}, {"demod_impl": "interpret"},
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_removed_lowering_values_raise(setup, kw):
+    """Lowerings that no longer exist are an error, not a silent
+    fallback: an unknown align_impl value, and the demod_impl argument
+    itself (its one remaining value was the XLA tail)."""
+    data, rx, nb = setup
+    error = TypeError if "demod_impl" in kw else ValueError
+    with pytest.raises(error, match="unknown|demod_impl"):
+        ot.decode_frame(rx, n_blocks=nb, guard_bands=True,
+                        modulation=ot.Modulation.QPSK, **kw)

@@ -1,8 +1,8 @@
 """SNR behavior of the streaming detection gates.
 
 decode_burst AND decode_continuous both gate on the normalized matched
-filter (detection_rho=0.3; one statistic across all scanning paths since
-round 3 — VERDICT round-2 weak #3 unified the PAR gate away).  These sweeps
+filter (detection_rho=0.3; one statistic across all scanning paths, which
+replaced an earlier PAR gate).  These sweeps
 establish the gate's false-negative behavior down the SNR ladder and its
 false-positive behavior on noise-only streams (the regime a live receiver
 actually sees: examples/jetson_rx.rs:87-90 skip-and-continue).

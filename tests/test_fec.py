@@ -1,5 +1,8 @@
 """FEC layer tests: Hamming(7,4) (north star) and RS(255,223) (parity)."""
 
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,6 +109,34 @@ class TestReedSolomon:
         import ctypes
         rs._LIB.rs_selftest.restype = ctypes.c_int
         assert rs._LIB.rs_selftest() == 0
+
+    def test_native_threads_none_without_the_library(self, monkeypatch):
+        monkeypatch.setattr(rs, "_LIB", None)
+        assert rs.native_threads() is None
+
+    @pytest.mark.parametrize("openmp", [True, False])
+    def test_native_threads_reports_the_build(self, tmp_path, openmp):
+        """rs_threads() is OpenMP's thread count in an OpenMP build and 1 in
+        the build native/Makefile makes where libgomp is missing.  Loaded
+        in a child process, which reads OMP_NUM_THREADS at start."""
+        import shutil
+        import subprocess
+        native = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "native")
+        for name in ("Makefile", "rs_codec.cpp"):
+            shutil.copy(os.path.join(native, name), tmp_path / name)
+        flags = "-O2 -fPIC -std=c++17 " + (
+            "-fopenmp" if openmp else "-Wno-unknown-pragmas")
+        env = dict(os.environ, OMP_NUM_THREADS="3")
+        subprocess.run(["make", "-C", str(tmp_path), "librs_codec.so",
+                        f"CXXFLAGS={flags}"], check=True, env=env,
+                       capture_output=True, timeout=300)
+        probe = ("import ctypes, sys; lib = ctypes.CDLL(sys.argv[1]); "
+                 "print(lib.rs_threads(), lib.rs_selftest())")
+        out = subprocess.run(
+            [sys.executable, "-c", probe, str(tmp_path / "librs_codec.so")],
+            check=True, env=env, capture_output=True, text=True, timeout=60)
+        assert out.stdout.split() == ["3" if openmp else "1", "0"]
 
     @pytest.mark.skipif(rs._LIB is None, reason="native codec not built")
     def test_native_matches_python_oracle_mixed_errors(self):

@@ -28,6 +28,31 @@ class TestTransfer:
         x = np.ones(8, np.complex128)
         assert to_device(x, dtype=jnp.complex64).dtype == jnp.complex64
 
+    def test_complex64_roundtrip_bit_exact(self):
+        rng = np.random.default_rng(1)
+        x = (rng.standard_normal(4096)
+             + 1j * rng.standard_normal(4096)).astype(np.complex64)
+        d = to_device(x)
+        assert d.dtype == np.complex64
+        back = to_host(d)
+        assert back.dtype == np.complex64
+        np.testing.assert_array_equal(back, x)
+
+    def test_complex128_kept_under_x64(self):
+        x = np.exp(1j * np.linspace(0, 1, 33))
+        d = to_device(x)
+        assert d.dtype == np.complex128      # the tests enable x64
+        np.testing.assert_array_equal(to_host(d), x)
+
+    def test_to_device_planar_layout(self):
+        from ofdm_tpu.core.transfer import to_device_planar
+        x = (np.arange(200) + 1j * np.arange(200)[::-1]).astype(np.complex64)
+        p = np.asarray(to_device_planar(x))
+        assert p.shape == (2, 384) and p.dtype == np.float32
+        np.testing.assert_array_equal(p[0, :200], x.real)
+        np.testing.assert_array_equal(p[1, :200], x.imag)
+        assert not p[:, 200:].any()
+
 
 class TestFeed:
     def test_backpressure_and_order(self):

@@ -48,7 +48,7 @@ def test_qam64_near_ber_floor_at_snr30():
 
 
 def test_float32_pipeline_decodes_clean():
-    # The TPU production dtype: complex64 end-to-end.
+    # The production dtype: complex64 end-to-end.
     a = _loop(DATA, True, ot.Modulation.QPSK, True, dtype=jnp.complex64)
     assert a.num_errs == 0, a
 
@@ -86,8 +86,8 @@ def test_cfo_aliasing_boundary_documented():
 
 def test_coherent_cfo_estimator_survives_aliasing_boundary():
     """cfo_estimator="coherent" (angle of the complex-averaged lag product,
-    the production default on decode_frame/streaming since the tools/exp_cfo
-    sweep: reference loses 15/16 frames at u >= 0.99, coherent 0) recovers
+    the production default on decode_frame/streaming: near the per-sample
+    wrap the reference estimator loses whole frames, coherent none) recovers
     the u=0.970 draw that breaks the reference's per-sample-angle mean."""
     tx = ot.encode(DATA, guard_bands=False, modulation=ot.Modulation.QPSK,
                    dtype=C128)

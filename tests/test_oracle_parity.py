@@ -1,4 +1,4 @@
-"""Bit-exactness of the batched TPU decoder vs the sequential oracle.
+"""Bit-exactness of the batched decoder vs the sequential oracle.
 
 The oracle (tests/oracle_rx.py) implements the reference receiver math as
 naive float64 loops.  The production decoder must produce byte-identical raw

@@ -3,8 +3,7 @@
 Runs tools/exp_serving.py at a tiny shape: feed thread -> double-buffered
 upload -> one fused decode dispatch per buffer with >= 2 in flight ->
 batched RS de-FEC -> colorspace mapping, gating on every buffer (clean AND
-CFO) recovering its transmitted pixels exactly.  The TPU-shape run records
-the sustained numbers in docs/BENCHMARKS.md.
+CFO) recovering its transmitted pixels exactly.
 """
 
 import json

@@ -95,8 +95,7 @@ def test_decode_continuous_max_frames(frames):
 
 def test_no_retrace_across_calls(frames):
     """Streaming graphs are module-level jits: a server decoding one buffer
-    per call must hit the jit cache, not retrace (remote-compile TPU
-    runtimes pay minutes per recompilation)."""
+    per call must hit the jit cache, not retrace and recompile."""
     from ofdm_tpu.phy import streaming as st
 
     datas, tx = frames

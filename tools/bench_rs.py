@@ -1,4 +1,4 @@
-"""Benchmark the native RS(255,223) codec (VERDICT round-1 task 4).
+"""Benchmark the native RS(255,223) codec.
 
 Measures native/librs_codec.so on this host two ways:
 - raw: the C entry point on preallocated buffers — the sustained rate a
@@ -6,17 +6,16 @@ Measures native/librs_codec.so on this host two ways:
 - wrapper: ofdm_tpu.fec.reed_solomon.encode_blocks/decode_blocks, which pay a
   defensive numpy copy (decode corrects in place).
 
-Derives the end-to-end sample rate each mode sustains against the TPU demod:
+Derives the end-to-end sample rate each mode sustains against the device demod:
 at the headline 64QAM+GB shape the demodulator emits 36 payload bytes per
 80-sample symbol (0.45 B/sample), so an X GS/s demod needs 0.45*X GB/s of RS
 decode to keep up (SURVEY.md section 7 "decide with a benchmark"; reference
 RS streaming at /root/reference/src/utils.rs:97-180).
 
 Run: python tools/bench_rs.py [--n-blocks 8192] [--reps 5]
-     python tools/bench_rs.py --json BENCH_RS.json   # committed artifact:
-         thread-scaling curve + mixed-error-density table + the worst-case
-         extrapolation formula (VERDICT r4 #5)
-Results recorded in docs/BENCHMARKS.md and BENCH_RS.json.
+     python tools/bench_rs.py --json bench_rs.json
+         # thread-scaling curve + mixed-error-density table + the worst-case
+         # extrapolation formula
 """
 
 import argparse
